@@ -1,4 +1,4 @@
-// gpis_index.cpp — native spatial runtime for gpismap_tpu.
+// gpis_index.cpp — native spatial runtime for gpismap.
 //
 // Array-pool adaptive 2^D-tree (D = 2 or 3) that reproduces the observable
 // semantics of the reference's pointer-based QuadTree/OcTree
@@ -23,7 +23,7 @@
 //     GP state arrays
 //
 // Built as a shared library; consumed via ctypes (see
-// gpismap_tpu/runtime/index.py).
+// gpismap/runtime/index.py).
 
 #include <cmath>
 #include <cstdint>

@@ -1,9 +1,10 @@
 #!/usr/bin/env python3
-"""2D demo: online mapping of the gazebo LiDAR sequence.
+"""2D demo: online mapping of the generated floor-plan LiDAR sequence.
 
-Python equivalent of matlab/demo_gpisMap.m + visualize_gpisMap.m: runs the
-demo frame schedule, evaluates the SDF field on the demo grid, and renders
-the field + variance-filtered surface contour.
+Python equivalent of matlab/demo_gpisMap.m + visualize_gpisMap.m: maps the
+28 generated scans (gpismap.datasets.floor_frames), evaluates the SDF field
+on the 49,551-point grid, and renders the field + variance-filtered
+surface contour.
 
 Usage: python demos/demo_2d.py [--frames N] [--cpu] [--out demo2d.png]
 """
@@ -35,13 +36,11 @@ def main():
     matplotlib.use("Agg")
     import matplotlib.pyplot as plt
 
-    from gpismap_tpu import datasets, viz
-    from gpismap_tpu.api import GPisMap2D
+    from gpismap import datasets, viz
+    from gpismap.api import GPisMap2D
 
     m = GPisMap2D()
-    frames = list(datasets.gazebo_frames())
-    if args.frames:
-        frames = frames[:args.frames]
+    frames = list(datasets.floor_frames(0, args.frames or 28))
 
     xtest, shape = datasets.gazebo_test_grid()
 
@@ -55,7 +54,7 @@ def main():
         pc = viz.plot_field_2d(ax, res, xtest, shape, scan_xy=scan,
                                pose=fr.pose)
         fig.colorbar(pc, ax=ax, label="SDF [m]")
-        ax.set_title(f"gpismap_tpu 2D — {n_done} frames, "
+        ax.set_title(f"gpismap 2D — {n_done} frames, "
                      f"{m.num_nodes} surface nodes")
         fig.savefig(path, dpi=110, bbox_inches="tight")
         plt.close(fig)

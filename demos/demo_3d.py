@@ -1,10 +1,10 @@
 #!/usr/bin/env python3
-"""3D demo: online mapping of the bigbird depth sequence.
+"""3D demo: online mapping of the generated table-top depth sequence.
 
-Python equivalent of matlab/demo_gpisMap3.m + visualize_gpisMap3.m: runs
-the 40-frame schedule with per-frame camera selection, evaluates the demo
-volume grid, extracts the isosurface and re-queries vertex variances for
-the alpha channel.
+Python equivalent of matlab/demo_gpisMap3.m + visualize_gpisMap3.m: maps
+the 40 generated frames (gpismap.datasets.tabletop_frames) with per-frame
+camera selection, evaluates the volume grid, extracts the isosurface and
+re-queries vertex variances for the alpha channel.
 
 Usage: python demos/demo_3d.py [--frames N] [--cpu] [--out demo3d.png]
 """
@@ -35,13 +35,11 @@ def main():
     matplotlib.use("Agg")
     import matplotlib.pyplot as plt
 
-    from gpismap_tpu import datasets, viz
-    from gpismap_tpu.api3d import GPisMap3D
+    from gpismap import datasets, viz
+    from gpismap.api3d import GPisMap3D
 
     m = GPisMap3D()
-    frames = list(datasets.bigbird_frames())
-    if args.frames:
-        frames = frames[:args.frames]
+    frames = list(datasets.tabletop_frames(0, args.frames or 40))
 
     for fr in frames:
         t0 = time.time()
@@ -74,7 +72,7 @@ def main():
         ax.set_ylim(-0.13, 0.17)
         ax.set_zlim(0.0, 0.30)
         ax.view_init(elev=30, azim=-30)
-    ax.set_title(f"gpismap_tpu 3D — {len(frames)} frames, "
+    ax.set_title(f"gpismap 3D — {len(frames)} frames, "
                  f"{m.num_nodes} surface nodes")
     fig.savefig(args.out, dpi=110, bbox_inches="tight")
     print(f"wrote {args.out}")

@@ -33,7 +33,7 @@ def main():
     import jax.numpy as jnp
     import optax
 
-    from gpismap_tpu import render
+    from gpismap import render
     sys.path.insert(0, os.path.join(_ROOT, "tests"))
     from test_hypergrad import _cfg, _circle_support, _fit
 

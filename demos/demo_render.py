@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Sphere-traced rendering demo: build the 3D map from bigbird frames,
+"""Sphere-traced rendering demo: build the 3D map from generated frames,
 then render depth/normal images from a camera pose via the differentiable
 ray marcher (no grid evaluation, no marching cubes).
 
@@ -30,11 +30,11 @@ def main():
     matplotlib.use("Agg")
     import matplotlib.pyplot as plt
 
-    from gpismap_tpu import datasets, render
-    from gpismap_tpu.api3d import GPisMap3D
+    from gpismap import datasets, render
+    from gpismap.api3d import GPisMap3D
 
     m = GPisMap3D()
-    frames = list(datasets.bigbird_frames())[:args.frames]
+    frames = list(datasets.tabletop_frames(0, args.frames))
     for fr in frames:
         m.set_camera(fr.cam_id, "bigbird")
         m.update(fr.depth, fr.pose)
@@ -65,7 +65,7 @@ def main():
     for ax in axes:
         ax.set_xticks([])
         ax.set_yticks([])
-    fig.suptitle("gpismap_tpu: differentiable sphere tracing of the "
+    fig.suptitle("gpismap: differentiable sphere tracing of the "
                  "online GPIS map")
     fig.savefig(args.out, dpi=110, bbox_inches="tight")
     print(f"wrote {args.out}")

@@ -1,7 +1,7 @@
 """Naive NumPy oracle implementing the reference GP math with explicit
 gradflag compaction, exactly as described by cpp/src/covFnc.cpp and
 cpp/src/OnGPIS.cpp / ObsGP.cpp. Used only by tests to validate that the
-masked/padded TPU formulation reproduces the compacted system bit-for-bit
+masked/padded batched formulation reproduces the compacted system bit-for-bit
 (up to float tolerance).
 
 Written independently from the closed forms; loops are intentionally slow

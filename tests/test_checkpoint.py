@@ -3,9 +3,9 @@ import os
 
 import numpy as np
 
-from gpismap_tpu.api import GPisMap2D
-from gpismap_tpu.config import CapacityParam
-from gpismap_tpu.runtime import checkpoint
+from gpismap.api import GPisMap2D
+from gpismap.config import CapacityParam
+from gpismap.runtime import checkpoint
 
 
 def _small_mapper():
@@ -53,7 +53,7 @@ def test_checkpoint_roundtrip(tmp_path):
 
 
 def test_mex_compat_surface():
-    from gpismap_tpu import mex_compat
+    from gpismap import mex_compat
 
     mex_compat.gpismap("reset")
     th, r, pose = _scan()

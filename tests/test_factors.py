@@ -8,9 +8,11 @@ indistinguishable from a from-scratch factorization of the live set.
 import numpy as np
 import jax.numpy as jnp
 
+from workloads import CAP_3D_SMALL, frames_2d, frames_3d
+
 
 def _fresh_factors(m):
-    from gpismap_tpu.models import cluster
+    from gpismap.models import cluster
 
     live = m._live_slots()
     pad = np.full(m.cap.test_active_cells, -1, np.int32)
@@ -21,21 +23,20 @@ def _fresh_factors(m):
 
 
 def test_incremental_factor_cache_matches_fresh():
-    from gpismap_tpu import datasets
-    from gpismap_tpu.api import GPisMap2D
+    from gpismap.api import GPisMap2D
 
     m = GPisMap2D()
-    fr = list(datasets.gazebo_frames())[0]
-    m.update(fr.thetas, fr.ranges, fr.pose)
+    fr = frames_2d(1)[0]
+    m.update(*fr)
     q = np.asarray(np.random.default_rng(0).uniform(-3, 3, (32, 2)),
-                   np.float32)
+                   np.float32) + fr[2][:2]
     m.test(q)                       # fills the cache
     assert m._factors is not None
     uniq_before = m._factors[1]
 
     # re-ingesting the same scan dedups every insert -> slot set unchanged
     # -> the retrain must refresh the cache incrementally, not drop it
-    m.update(fr.thetas, fr.ranges, fr.pose)
+    m.update(*fr)
     assert m._factors is not None, "incremental path did not run"
     assert m._factors[1] is uniq_before, "cache was rebuilt, not updated"
 
@@ -55,17 +56,16 @@ def test_incremental_factor_cache_matches_fresh():
 
 
 def test_factor_cache_invalidated_on_slot_set_change():
-    from gpismap_tpu import datasets
-    from gpismap_tpu.api import GPisMap2D
+    from gpismap.api import GPisMap2D
 
     m = GPisMap2D()
-    frames = list(datasets.gazebo_frames())[:2]
-    m.update(frames[0].thetas, frames[0].ranges, frames[0].pose)
+    frames = frames_2d(2)
+    m.update(*frames[0])
     m.test(np.zeros((4, 2), np.float32))
     assert m._factors is not None
     # a different pose inserts nodes into new cells -> slot set changes ->
     # the stale cache must be dropped (refilled lazily on next test)
-    m.update(frames[1].thetas, frames[1].ranges, frames[1].pose)
+    m.update(*frames[1])
     live = m._live_slots()
     if m._factors is not None:
         # cache survived: slot set must genuinely be unchanged
@@ -80,8 +80,8 @@ def test_bucketed_factorize_matches_full():
     identity-row padding; cluster._factorize_cells_bucketed)."""
     import dataclasses
 
-    from gpismap_tpu.config import CAPACITY_2D
-    from gpismap_tpu.models import cluster
+    from gpismap.config import CAPACITY_2D
+    from gpismap.models import cluster
 
     rng = np.random.default_rng(7)
     cap = dataclasses.replace(CAPACITY_2D, gp_support=64, max_cells=8)
@@ -126,8 +126,8 @@ def test_update_factors_from_l_matches_rebuild():
     architecture) must equal the from-scratch rebuild."""
     import dataclasses
 
-    from gpismap_tpu.config import CAPACITY_2D
-    from gpismap_tpu.models import cluster
+    from gpismap.config import CAPACITY_2D
+    from gpismap.models import cluster
 
     rng = np.random.default_rng(11)
     cap = dataclasses.replace(CAPACITY_2D, gp_support=64, max_cells=8)
@@ -168,11 +168,10 @@ def test_update_factors_from_l_matches_rebuild():
 def test_update_batch_matches_per_frame():
     """The pipelined update_batch is semantically the per-frame update()
     loop: identical node sets and query fields after the same frames."""
-    from gpismap_tpu import datasets
-    from gpismap_tpu.api import GPisMap2D
+    from gpismap import datasets
+    from gpismap.api import GPisMap2D
 
-    frames = [(fr.thetas, fr.ranges, fr.pose)
-              for fr in list(datasets.gazebo_frames())[:4]]
+    frames = frames_2d(4)
 
     m1 = GPisMap2D()
     for th, rg, pose in frames:
@@ -186,7 +185,7 @@ def test_update_batch_matches_per_frame():
     np.testing.assert_allclose(np.sort(p1, axis=0), np.sort(pb, axis=0),
                                rtol=1e-6, atol=1e-6)
 
-    q, _ = __import__("gpismap_tpu").datasets.gazebo_test_grid()
+    q, _ = datasets.gazebo_test_grid()
     r1 = m1.test(q[::64])
     rb = mb.test(q[::64])
     np.testing.assert_allclose(r1, rb, rtol=1e-5, atol=1e-5)
@@ -195,23 +194,23 @@ def test_update_batch_matches_per_frame():
 def test_update_batch_3d_matches_per_frame():
     """3D pipelined update_batch == per-frame update() (fused reeval):
     same node set and query fields."""
-    from gpismap_tpu import datasets
-    from gpismap_tpu.api3d import GPisMap3D
+    from gpismap import datasets
+    from gpismap.api3d import GPisMap3D
 
-    raw = list(datasets.bigbird_frames())[:2]
-    m1 = GPisMap3D()
-    for fr in raw:
-        m1.set_camera(fr.cam_id, "bigbird")
-        m1.update(fr.depth, fr.pose)
-    mb = GPisMap3D()
-    mb.update_batch([(fr.depth, fr.pose, fr.cam_id) for fr in raw])
+    raw = frames_3d(2)
+    m1 = GPisMap3D(cap=CAP_3D_SMALL)
+    for depth, pose, cam in raw:
+        m1.set_camera(cam)
+        m1.update(depth, pose)
+    mb = GPisMap3D(cap=CAP_3D_SMALL)
+    mb.update_batch(raw)
 
     assert m1.num_nodes == mb.num_nodes
     np.testing.assert_allclose(
         np.sort(m1.get_all_points(), axis=0),
         np.sort(mb.get_all_points(), axis=0), rtol=1e-6, atol=1e-6)
 
-    xt, _ = __import__("gpismap_tpu").datasets.bigbird_test_grid()
+    xt, _ = datasets.bigbird_test_grid()
     r1 = m1.test(xt[::64])
     rb = mb.test(xt[::64])
     np.testing.assert_allclose(r1, rb, rtol=1e-5, atol=1e-5)

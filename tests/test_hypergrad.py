@@ -10,15 +10,15 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 
-from gpismap_tpu import render
-from gpismap_tpu.config import CapacityParam
-from gpismap_tpu.models import cluster
+from gpismap import render
+from gpismap.config import CapacityParam
+from gpismap.models import cluster
 
 
 def _circle_support(n=40, m=16):
     """Support data for a unit-circle map, grouped into cluster cells."""
-    from gpismap_tpu.config import TREE_2D
-    from gpismap_tpu.runtime import SpatialIndex
+    from gpismap.config import TREE_2D
+    from gpismap.runtime import SpatialIndex
 
     cap = CapacityParam(gp_support=m, retrain_batch=8, max_cells=64,
                         max_nodes=512, test_tile=16, test_active_cells=16,
@@ -117,7 +117,7 @@ def test_hypergrad_multidevice_allreduce():
     if len(_jax.devices()) < 8:
         pytest.skip("need 8 devices")
     from jax.sharding import NamedSharding, PartitionSpec as P
-    from gpismap_tpu.parallel import data_mesh
+    from gpismap.parallel import data_mesh
 
     cap, data, grid = _circle_support()
     cfg = _cfg(cap)

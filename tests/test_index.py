@@ -3,8 +3,8 @@ cpp/src/quadtree.cpp / octree.cpp)."""
 import numpy as np
 import pytest
 
-from gpismap_tpu.config import TREE_2D, TREE_3D
-from gpismap_tpu.runtime import SpatialIndex
+from gpismap.config import TREE_2D, TREE_3D
+from gpismap.runtime import SpatialIndex
 
 RNG = np.random.default_rng(7)
 

@@ -4,7 +4,7 @@ import pytest
 
 import jax.numpy as jnp
 
-from gpismap_tpu.ops import gp, kernels
+from gpismap.ops import gp, kernels
 
 from naive_oracle import (gpou_fit_test, matern_cross, matern_train,
                           ongpis_fit_test, ou_train)

@@ -9,7 +9,7 @@ cross-process psum. Each process checks its local output rows against a
 locally-computed single-device reference.
 
 This is the executable form of the multihost.py recipe; a real pod slice
-only swaps the CPU virtual devices for TPU chips.
+only swaps the CPU virtual devices for GPUs.
 """
 import os
 import socket
@@ -25,7 +25,7 @@ import jax
 jax.config.update("jax_platforms", "cpu")
 import numpy as np
 import jax.numpy as jnp
-from gpismap_tpu.parallel import multihost
+from gpismap.parallel import multihost
 
 multihost.initialize(coordinator_address=f"127.0.0.1:{port}",
                      num_processes=2, process_id=pid)
@@ -35,7 +35,7 @@ mesh = multihost.global_data_mesh()
 
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 from test_parallel import _circle_map
-from gpismap_tpu.models import cluster
+from gpismap.models import cluster
 
 store, grid, kw = _circle_map()
 
@@ -73,7 +73,7 @@ import jax
 jax.config.update("jax_platforms", "cpu")
 import numpy as np
 import jax.numpy as jnp
-from gpismap_tpu.parallel import multihost
+from gpismap.parallel import multihost
 
 multihost.initialize(coordinator_address=f"127.0.0.1:{port}",
                      num_processes=2, process_id=pid)
@@ -81,9 +81,9 @@ assert jax.process_count() == 2
 mesh = multihost.global_data_mesh()
 n_local_dev = len(jax.local_devices())
 
-from gpismap_tpu import datasets
-from gpismap_tpu.api import GPisMap2D
-from gpismap_tpu.models import cluster
+from gpismap import datasets
+from gpismap.api import GPisMap2D
+from gpismap.models import cluster
 
 m = GPisMap2D()
 for fr in list(datasets.gazebo_frames())[:4]:
@@ -139,7 +139,7 @@ import jax
 jax.config.update("jax_platforms", "cpu")
 import numpy as np
 import jax.numpy as jnp
-from gpismap_tpu.parallel import multihost
+from gpismap.parallel import multihost
 
 multihost.initialize(coordinator_address=f"127.0.0.1:{port}",
                      num_processes=2, process_id=pid)
@@ -147,9 +147,9 @@ assert jax.process_count() == 2
 mesh = multihost.global_data_mesh()
 n_local_dev = len(jax.local_devices())
 
-from gpismap_tpu import datasets
-from gpismap_tpu.api3d import GPisMap3D
-from gpismap_tpu.models import cluster
+from gpismap import datasets
+from gpismap.api3d import GPisMap3D
+from gpismap.models import cluster
 
 m = GPisMap3D()
 for fr in list(datasets.bigbird_frames())[:4]:

@@ -8,6 +8,7 @@ import numpy as np
 import jax.numpy as jnp
 
 from test_parallel import _circle_map
+from workloads import CAP_3D_SMALL, frames_2d, frames_3d
 
 
 def _live_cells(idx, cell_size=1.6):
@@ -25,9 +26,9 @@ def _live_cells(idx, cell_size=1.6):
 
 
 def test_neighbor_table_matches_window():
-    from gpismap_tpu.config import TREE_2D
-    from gpismap_tpu.models import cluster
-    from gpismap_tpu.runtime import SpatialIndex
+    from gpismap.config import TREE_2D
+    from gpismap.models import cluster
+    from gpismap.runtime import SpatialIndex
 
     store, grid, kw = _circle_map()
     # rebuild the same index to get the live cell list
@@ -65,7 +66,7 @@ def test_two_phase_matches_single_phase():
     queries, GPisMap.cpp:706-722) must return EXACTLY the single-phase
     fields — the selection never reads rank-1/2 results of confident
     queries, so skipping them is a pure work reduction."""
-    from gpismap_tpu.models import cluster
+    from gpismap.models import cluster
 
     store, grid, kw = _circle_map()
     rng = np.random.default_rng(3)
@@ -88,7 +89,7 @@ def test_two_phase_matches_single_phase():
 def test_flat_eval_matches_scan():
     """The flat (non-scanned) tile evaluation used by the differentiable
     render correction must equal the chunked-scan evaluation."""
-    from gpismap_tpu.models import cluster
+    from gpismap.models import cluster
 
     store, grid, kw = _circle_map()
     rng = np.random.default_rng(5)
@@ -102,9 +103,9 @@ def test_flat_eval_matches_scan():
 
 
 def test_neighbor_table_overflow_counted():
-    from gpismap_tpu.config import TREE_2D
-    from gpismap_tpu.models import cluster
-    from gpismap_tpu.runtime import SpatialIndex
+    from gpismap.config import TREE_2D
+    from gpismap.models import cluster
+    from gpismap.runtime import SpatialIndex
 
     store, grid, kw = _circle_map()
     idx = SpatialIndex(2, TREE_2D, max_slots=64)
@@ -130,14 +131,14 @@ def test_mapper_surfaces_nbr_overflow(monkeypatch):
     the full API path (never a silent divergence from the window path)."""
     import dataclasses
 
-    from gpismap_tpu import datasets
-    from gpismap_tpu.api import GPisMap2D
-    from gpismap_tpu.config import CAPACITY_2D
+    from gpismap import datasets
+    from gpismap.api import GPisMap2D
+    from gpismap.config import CAPACITY_2D
 
     monkeypatch.setenv("GPISMAP_NBR_TABLE", "1")
     m = GPisMap2D(cap=dataclasses.replace(CAPACITY_2D, nbr_k=1))
-    for fr in list(datasets.gazebo_frames())[:2]:
-        m.update(fr.thetas, fr.ranges, fr.pose)
+    for fr in frames_2d(2):
+        m.update(*fr)
     q, _ = datasets.gazebo_test_grid()
     m.test(q[::64])
     assert m.stats.get("nbr_overflow", 0) > 0
@@ -146,18 +147,18 @@ def test_mapper_surfaces_nbr_overflow(monkeypatch):
 def test_mapper_table_matches_window_2d(monkeypatch):
     """GPisMap2D with the table forced on == table off, over real
     frames (insert/retrain churn rebuilds the table each frame)."""
-    from gpismap_tpu import datasets
-    from gpismap_tpu.api import GPisMap2D
+    from gpismap import datasets
+    from gpismap.api import GPisMap2D
 
-    frames = list(datasets.gazebo_frames())[:3]
+    frames = frames_2d(3)
     monkeypatch.setenv("GPISMAP_NBR_TABLE", "0")
     m0 = GPisMap2D()
     for fr in frames:
-        m0.update(fr.thetas, fr.ranges, fr.pose)
+        m0.update(*fr)
     monkeypatch.setenv("GPISMAP_NBR_TABLE", "1")
     m1 = GPisMap2D()
     for fr in frames:
-        m1.update(fr.thetas, fr.ranges, fr.pose)
+        m1.update(*fr)
 
     q, _ = datasets.gazebo_test_grid()
     r0 = m0.test(q[::32])
@@ -167,7 +168,7 @@ def test_mapper_table_matches_window_2d(monkeypatch):
 
 
 def test_build_grid_device_matches_host():
-    from gpismap_tpu.models import cluster
+    from gpismap.models import cluster
 
     rng = np.random.default_rng(1)
     for dim, gh in ((2, 16), (3, 8)):
@@ -190,19 +191,19 @@ def test_mapper_mirror_matches_host_gather(monkeypatch):
     """Retrain through the device node mirror == host-gathered support
     (identical store state and query fields over real frames with
     insert/reeval churn)."""
-    from gpismap_tpu import datasets
-    from gpismap_tpu.api import GPisMap2D
+    from gpismap import datasets
+    from gpismap.api import GPisMap2D
 
-    frames = list(datasets.gazebo_frames())[:3]
+    frames = frames_2d(3)
     monkeypatch.setenv("GPISMAP_NODE_MIRROR", "0")
     m0 = GPisMap2D()
     for fr in frames:
-        m0.update(fr.thetas, fr.ranges, fr.pose)
+        m0.update(*fr)
     assert m0._mirror is None
     monkeypatch.setenv("GPISMAP_NODE_MIRROR", "1")
     m1 = GPisMap2D()
     for fr in frames:
-        m1.update(fr.thetas, fr.ranges, fr.pose)
+        m1.update(*fr)
     assert m1._mirror is not None
 
     np.testing.assert_array_equal(np.asarray(m0.store.alpha),
@@ -216,20 +217,20 @@ def test_mapper_mirror_matches_host_gather(monkeypatch):
 def test_mapper_mirror_3d_two_frames(monkeypatch):
     """3D twin (exercises the hybrid-reeval dirty tracking incl.
     re-inserted mover ids)."""
-    from gpismap_tpu import datasets
-    from gpismap_tpu.api3d import GPisMap3D
+    from gpismap import datasets
+    from gpismap.api3d import GPisMap3D
 
-    raw = list(datasets.bigbird_frames())[:2]
+    raw = frames_3d(2)
     monkeypatch.setenv("GPISMAP_NODE_MIRROR", "0")
-    m0 = GPisMap3D()
-    for fr in raw:
-        m0.set_camera(fr.cam_id, "bigbird")
-        m0.update(fr.depth, fr.pose)
+    m0 = GPisMap3D(cap=CAP_3D_SMALL)
+    for depth, pose, cam in raw:
+        m0.set_camera(cam)
+        m0.update(depth, pose)
     monkeypatch.setenv("GPISMAP_NODE_MIRROR", "1")
-    m1 = GPisMap3D()
-    for fr in raw:
-        m1.set_camera(fr.cam_id, "bigbird")
-        m1.update(fr.depth, fr.pose)
+    m1 = GPisMap3D(cap=CAP_3D_SMALL)
+    for depth, pose, cam in raw:
+        m1.set_camera(cam)
+        m1.update(depth, pose)
     np.testing.assert_array_equal(np.asarray(m0.store.alpha),
                                   np.asarray(m1.store.alpha))
     xt, _ = datasets.bigbird_test_grid()
@@ -244,21 +245,20 @@ def test_fused_epilogue_folds_table_and_factors(monkeypatch):
     BASELINE headroom #1)."""
     import jax.numpy as jnp
 
-    from gpismap_tpu import datasets
-    from gpismap_tpu.api import GPisMap2D
-    from gpismap_tpu.models import cluster
+    from gpismap.api import GPisMap2D
+    from gpismap.models import cluster
 
     monkeypatch.setenv("GPISMAP_NBR_TABLE", "1")
     m = GPisMap2D()
-    # one retrain bucket -> one group -> the fused epilogue runs on CPU
-    # too (TPU always groups into one dispatch; _retrain_store)
+    # one retrain bucket -> one group -> the fused epilogue runs whatever
+    # the fit-dispatch default (_retrain_store)
     m._retrain_buckets = (m.cap.gp_support,)
-    fr = list(datasets.gazebo_frames())[0]
-    m.update(fr.thetas, fr.ranges, fr.pose)
+    fr = frames_2d(1)[0]
+    m.update(*fr)
     m.test(np.zeros((8, 2), np.float32))     # fill table + factor cache
     assert m._nbrs is not None and m._factors is not None
     # same scan again: slot set unchanged -> fused epilogue folds both
-    m.update(fr.thetas, fr.ranges, fr.pose)
+    m.update(*fr)
     assert m._nbrs is not None, "folded table missing"
     assert m._factors is not None, "folded factor refresh missing"
 
@@ -288,7 +288,7 @@ def test_candidates_top3_fused_matches_two_stage():
     with many duplicate distances)."""
     import jax.numpy as jnp
 
-    from gpismap_tpu.models import cluster
+    from gpismap.models import cluster
 
     rng = np.random.default_rng(3)
     t, k, d, nq = 64, 12, 2, 513

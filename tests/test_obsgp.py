@@ -3,8 +3,8 @@ reference partition rules literally (ObsGP.cpp:85-187, :204-463)."""
 import numpy as np
 import jax.numpy as jnp
 
-from gpismap_tpu.config import OBSGP_1D, OBSGP_2D
-from gpismap_tpu.models import obsgp
+from gpismap.config import OBSGP_1D, OBSGP_2D
+from gpismap.models import obsgp
 from naive_oracle import gpou_fit_test
 
 RNG = np.random.default_rng(3)
@@ -185,17 +185,13 @@ def test_obsgp2d_blocked_matches_gather():
     import jax
     import jax.numpy as jnp
     import numpy as np
-    import pytest
 
-    from gpismap_tpu import datasets
-    from gpismap_tpu.config import MAPPER_3D, OBSGP_2D, CameraParam
-    from gpismap_tpu.models import mapper3d, obsgp
+    from gpismap import datasets
+    from gpismap.config import MAPPER_3D, OBSGP_2D, CameraParam
+    from gpismap.models import mapper3d, obsgp
 
-    try:
-        fr = next(datasets.bigbird_frames())
-    except FileNotFoundError:
-        pytest.skip("bigbird data not available")
-    from gpismap_tpu.config import BIGBIRD_CAMS
+    fr = next(datasets.tabletop_frames(0, 1))
+    from gpismap.config import BIGBIRD_CAMS
     cam = BIGBIRD_CAMS[fr.cam_id - 1]
     pose = np.asarray(fr.pose, np.float32).reshape(-1)
     tr, rot = pose[:3], pose[3:12].reshape(3, 3, order="F")
@@ -265,16 +261,12 @@ def test_newmeas3d_compact_matches_gather():
     unobservable through insert_ok)."""
     import jax.numpy as jnp
     import numpy as np
-    import pytest
 
-    from gpismap_tpu import datasets
-    from gpismap_tpu.config import BIGBIRD_CAMS, MAPPER_3D, OBSGP_2D
-    from gpismap_tpu.models import mapper3d, obsgp
+    from gpismap import datasets
+    from gpismap.config import BIGBIRD_CAMS, MAPPER_3D, OBSGP_2D
+    from gpismap.models import mapper3d, obsgp
 
-    try:
-        fr = next(datasets.bigbird_frames())
-    except FileNotFoundError:
-        pytest.skip("bigbird data not available")
+    fr = next(datasets.tabletop_frames(0, 1))
     cam = BIGBIRD_CAMS[fr.cam_id - 1]
     pose = np.asarray(fr.pose, np.float32).reshape(-1)
     tr, rot = pose[:3], pose[3:12].reshape(3, 3, order="F")
@@ -315,16 +307,12 @@ def test_fit_obsgp2d_compacted_matches_full():
     counter (api3d._obs_cell_cap's integral image) never undercounts."""
     import jax.numpy as jnp
     import numpy as np
-    import pytest
 
-    from gpismap_tpu import datasets
-    from gpismap_tpu.config import BIGBIRD_CAMS, MAPPER_3D, OBSGP_2D
-    from gpismap_tpu.models import mapper3d, obsgp
+    from gpismap import datasets
+    from gpismap.config import BIGBIRD_CAMS, MAPPER_3D, OBSGP_2D
+    from gpismap.models import mapper3d, obsgp
 
-    try:
-        fr = next(datasets.bigbird_frames())
-    except FileNotFoundError:
-        pytest.skip("bigbird data not available")
+    fr = next(datasets.tabletop_frames(0, 1))
     cam = BIGBIRD_CAMS[fr.cam_id - 1]
     pose = np.asarray(fr.pose, np.float32).reshape(-1)
     prep = mapper3d.preprocess_3d(
@@ -346,7 +334,7 @@ def test_fit_obsgp2d_compacted_matches_full():
                                   np.asarray(comp.linv)[tr])
 
     # host cell counter covers the trained set
-    from gpismap_tpu.api3d import GPisMap3D
+    from gpismap.api3d import GPisMap3D
     m = GPisMap3D()
     m.set_camera(cam)
     nv, _ = m._host_gate(fr.depth)

@@ -25,7 +25,7 @@ import pytest
 
 def test_pack_unpack_preserves_doubled_noises_2d():
     import jax.numpy as jnp
-    from gpismap_tpu.models import mapper2d
+    from gpismap.models import mapper2d
 
     k, nb = 4, 2
     rv = mapper2d.Reeval2D(
@@ -57,7 +57,7 @@ def test_pack_unpack_preserves_doubled_noises_2d():
 
 def test_pack_unpack_preserves_doubled_noises_3d():
     import jax.numpy as jnp
-    from gpismap_tpu.models import mapper3d
+    from gpismap.models import mapper3d
 
     k, p = 3, 2
     rv = mapper3d.Reeval3D(
@@ -128,7 +128,7 @@ def test_action1_doubles_node_noises_2d(mode):
     every in-view node's noises must be EXACTLY doubled
     (GPisMap.cpp:354-357), through the packed default update(), the
     pipelined update_batch(), and the strict replay path alike."""
-    from gpismap_tpu.api import GPisMap2D
+    from gpismap.api import GPisMap2D
 
     m = GPisMap2D(strict_reeval=(mode == "strict"))
     th1, rg1, pose = _scan_2d(2.03)
@@ -151,8 +151,8 @@ def test_action1_doubles_node_noises_2d(mode):
 def test_action1_doubles_node_noises_3d(mode):
     """3D twin (GPisMap3.cpp:462-466): close wall then far wall through
     the hybrid (default, packed), fused-scan, and strict replay paths."""
-    from gpismap_tpu.api3d import GPisMap3D
-    from gpismap_tpu.config import CameraParam
+    from gpismap.api3d import GPisMap3D
+    from gpismap.config import CameraParam
 
     # fine enough ray spacing that the ObsGP posterior variance at the
     # relocated probe positions stays under obs_var_thre=0.04 (tangent
@@ -176,8 +176,8 @@ def test_action1_doubles_node_noises_3d(mode):
 
 def test_action1_doubles_node_noises_3d_batch():
     """update_batch() (the pipelined packed pull) applies the same 2x."""
-    from gpismap_tpu.api3d import GPisMap3D
-    from gpismap_tpu.config import CameraParam
+    from gpismap.api3d import GPisMap3D
+    from gpismap.config import CameraParam
 
     # fine enough ray spacing that the ObsGP posterior variance at the
     # relocated probe positions stays under obs_var_thre=0.04 (tangent

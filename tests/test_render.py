@@ -3,10 +3,10 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 
-from gpismap_tpu.config import CapacityParam, TREE_2D
-from gpismap_tpu.models import cluster
-from gpismap_tpu.render import RenderConfig, sdf_eval, sphere_trace
-from gpismap_tpu.runtime import SpatialIndex
+from gpismap.config import CapacityParam, TREE_2D
+from gpismap.models import cluster
+from gpismap.render import RenderConfig, sdf_eval, sphere_trace
+from gpismap.runtime import SpatialIndex
 
 
 def _circle_map():
@@ -89,7 +89,7 @@ def test_hit_compacted_correction_gradient_matches_full():
     hit rays only) must give the same gradients as differentiating the
     full sphere_trace for a hit-masked loss — non-hit rays carry zero
     gradient by construction."""
-    from gpismap_tpu.render import implicit_correct
+    from gpismap.render import implicit_correct
 
     store, grid, cfg = _circle_map()
     ang = np.linspace(0, 2 * np.pi, 8, endpoint=False).astype(np.float32)

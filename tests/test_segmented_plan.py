@@ -3,7 +3,7 @@ exactly (same pair placement, same padding, same tile segments)."""
 import numpy as np
 import jax.numpy as jnp
 
-from gpismap_tpu.ops import segmented
+from gpismap.ops import segmented
 
 
 def _check(seg, n_segments, tile):

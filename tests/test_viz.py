@@ -1,7 +1,7 @@
 """Isosurface extraction sanity (marching tetrahedra)."""
 import numpy as np
 
-from gpismap_tpu.viz import marching_tetrahedra
+from gpismap.viz import marching_tetrahedra
 
 
 def test_sphere_isosurface():
@@ -37,7 +37,7 @@ def test_slice_planes_geometry():
     """The two oblique slice planes match the reference construction
     (visualize_gpisMap3.m:53-68): rotations about z preserve plane 2's
     height and plane 3 passes through the translated origin line."""
-    from gpismap_tpu.viz import slice_planes_3d
+    from gpismap.viz import slice_planes_3d
 
     planes = slice_planes_3d()
     assert len(planes) == 2
@@ -59,7 +59,7 @@ def test_plot_slices_3d_renders():
     matplotlib.use("Agg")
     import matplotlib.pyplot as plt
 
-    from gpismap_tpu.viz import plot_slices_3d, slice_planes_3d
+    from gpismap.viz import plot_slices_3d, slice_planes_3d
 
     planes = slice_planes_3d()
     results = [np.zeros((len(p), 8), np.float32) for p, _ in planes]
